@@ -19,6 +19,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
+from pathtracer.bench.checks import (  # noqa: E402,F401  (re-exported)
+    MEAN_TOL, OUTLIER_TOL, RMSE_TOL, image_gate)
+
 
 def build_configs(scale: float):
     import functools
@@ -28,25 +31,20 @@ def build_configs(scale: float):
     from pathtracer.scene import procedural
     from pathtracer.scene.build import MaterialDesc
 
-    # Production parity: the headline bench runs spp-batched wavefronts
-    # (chip-confirmed default, PERF.md 0.31) and the win GROWS as the
-    # per-call pool shrinks (PERF.md 0.42: config 3 = 4.32 -> 7.38
-    # Mrays/s on chip), so the config sweep uses the same default.
-    # PT_CFG_SPP_BATCH=0 reverts to per-sample wavefronts. Exception:
-    # config 1 routes to the dense 12-tri intersector (render.py
-    # make_intersectors), where the 4x wavefront measured SLOWER
-    # (3.71 -> 2.97) - it stays per-sample.
+    # Production parity: the headline bench runs spp-batched wavefronts,
+    # so the config sweep uses the same default. PT_CFG_SPP_BATCH=0
+    # reverts to per-sample wavefronts. Exception: config 1 routes to the
+    # dense 12-tri intersector (render.py make_intersectors), where there
+    # is no coherence sort for a bigger pool to help - it stays per-sample.
     _sb = os.environ.get("PT_CFG_SPP_BATCH", "1") != "0"
     RenderConfig = functools.partial(_RC, spp_batch=_sb)
 
-    # Frame-batch each progressive config toward the 8.3M-lane
-    # pool-saturation point (PERF.md 0.40/0.41: the column win rides on
-    # pool growth, which the 1-spp configs leave on the table), capped
-    # at 8 frames/step. The sample set is identical (frame_batch
-    # semantics); ms/frame stays per-frame (harness renormalizes).
-    # Chip A/B 2026-08-21 (PERF.md 0.43): bunny x2.46 (2.23 -> 5.48),
-    # materials +13% (7.20 -> 8.11), sponza-1spp +17% (5.77 -> 6.76),
-    # envmap neutral (1.323 -> 1.321). PT_CFG_FB=0 disables.
+    # Frame-batch each progressive config toward the pool-saturation
+    # point (config.POOL_SATURATION_LANES: the column win rides on pool
+    # growth, which the 1-spp configs leave on the table), capped at 8
+    # frames/step. The sample set is identical (frame_batch semantics);
+    # ms/frame stays per-frame (harness renormalizes). PT_CFG_FB=0
+    # disables.
     _fb_auto = os.environ.get("PT_CFG_FB", "auto") == "auto"
 
     def _with_fb(cfg):
@@ -126,9 +124,6 @@ GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tests", "goldens")
 PROBE_RES = 64          # fixed accuracy-probe resolution (every config)
 PROBE_SPP = 4
-RMSE_TOL = 5e-3         # inlier same-seed cross-platform float budget
-OUTLIER_TOL = 0.02      # fraction of pixels allowed to flip a winner
-MEAN_TOL = 1e-3         # relative mean-radiance agreement
 
 
 def accuracy_probe(scene, cfg, camera, idx, write=False):
@@ -137,14 +132,15 @@ def accuracy_probe(scene, cfg, camera, idx, write=False):
     The counter-based RNG makes the probe deterministic in (seed, frame,
     pixel), so cross-platform differences are pure float arithmetic.
     Dense scenes flip nearest-hit WINNERS at silhouettes across
-    platforms (TPU-vs-CPU fused-multiply rounding in the sweep moves t
-    by ~1 ulp and a different triangle wins; measured 2026-08-19 on
-    config 5: 9/4096 pixels differ > 0.1 while the other 98% agree to
-    RMSE 2e-4 and mean radiance to 3e-6 relative), so the gate is
-    robust: inlier RMSE (|diff| <= 98th pct) <= RMSE_TOL AND winner-flip
-    pixels (|diff| > 0.01) <= OUTLIER_TOL AND relative mean shift <=
-    MEAN_TOL. Real behavioral drift moves ALL pixels (fails inlier/mean)
-    or many (fails outlier). Returns (inlier_rmse|None, ok).
+    platforms (a different fused multiply-add order in the sweep moves t
+    by ~1 ulp and a different triangle wins), so the gate is robust
+    (pathtracer/bench/checks.image_gate): inlier RMSE (|diff| <= 98th
+    pct) <= RMSE_TOL AND winner-flip pixels (|diff| > 0.01) <=
+    OUTLIER_TOL AND relative mean shift <= MEAN_TOL. Real behavioral
+    drift moves ALL pixels (fails inlier/mean) or many (fails outlier).
+    Returns the gate dict (checks.image_gate: ok, inlier_rmse,
+    outlier_frac, mean_rel), or {"ok": bool, "golden": "written" |
+    "missing"} when there is nothing to compare.
     """
     import dataclasses
 
@@ -158,20 +154,10 @@ def accuracy_probe(scene, cfg, camera, idx, write=False):
     if write:
         os.makedirs(GOLDEN_DIR, exist_ok=True)
         np.savez_compressed(path, img=img)
-        return None, True
+        return {"ok": True, "golden": "written"}
     if not os.path.exists(path):
-        return None, False
-    g = np.load(path)["img"]
-    d = img - g
-    ad = np.abs(d).max(-1)
-    inl = ad <= np.percentile(ad, 98.0)
-    inlier_rmse = float(np.sqrt(np.mean(d[inl] ** 2)))
-    outlier_frac = float((ad > 0.01).mean())
-    mean_rel = abs(float(img.mean()) - float(g.mean())) / max(
-        abs(float(g.mean())), 1e-6)
-    ok = (inlier_rmse <= RMSE_TOL and outlier_frac <= OUTLIER_TOL
-          and mean_rel <= MEAN_TOL)
-    return inlier_rmse, ok
+        return {"ok": False, "golden": "missing"}
+    return image_gate(img, np.load(path)["img"])
 
 
 def main(argv=None):
@@ -186,16 +172,15 @@ def main(argv=None):
                          "of checking")
     ap.add_argument("--out", default=None, metavar="JSON",
                     help="also write the per-config results as one JSON "
-                         "file (benchmarks/results/configs_latest.json is "
-                         "picked up by bench.py's detail dict, so the "
-                         "driver's BENCH_r*.json captures all 5 configs)")
+                         "file")
     args = ap.parse_args(argv)
 
-    if os.environ.get("PT_PLATFORM"):     # off-chip smoke runs (app.py:37)
-        import jax
+    from pathtracer.bench.device import device_info
+    from pathtracer.utils.compile_cache import enable_compile_cache
 
-        jax.config.update("jax_platforms", os.environ["PT_PLATFORM"])
-
+    # goldens are written on the CPU; every measurement needs the GPU
+    device = None if args.write_goldens else device_info()
+    enable_compile_cache()
     from pathtracer.accel.cluster import build_scene_clusters
     from pathtracer.bench.harness import bench_scene
 
@@ -220,12 +205,12 @@ def main(argv=None):
             "tris": int(scene.n_tris),
             "resolution": [cfg.width, cfg.height],
             "spp": cfg.spp,
+            "device": device,
         }
         if not args.no_check:
-            rmse, ok = accuracy_probe(scene, cfg, camera, i)
-            out["inlier_rmse_vs_golden"] = (None if rmse is None
-                                            else round(rmse, 6))
-            out["accuracy_ok"] = ok
+            gate = accuracy_probe(scene, cfg, camera, i)
+            out["inlier_rmse_vs_golden"] = gate.get("inlier_rmse")
+            out["accuracy_ok"] = gate["ok"]
         print(json.dumps(out), flush=True)
         results.append(out)
     if args.out and results:

@@ -1,6 +1,6 @@
 // pathtracer native runtime: image codec + glTF accessor unpacking.
 //
-// The TPU-native counterpart of the reference's vendored native components:
+// The counterpart of the reference's vendored native components:
 // stb_image's texture decode (texture.cpp:5-13) and tinygltf's buffer/
 // accessor extraction (model_loader.cpp:86-138). JAX/XLA owns the compute
 // path; this library owns the host-side data path (asset IO), exposed to

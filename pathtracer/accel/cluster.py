@@ -1,15 +1,11 @@
 """Cluster acceleration structure for packet (tile) traversal.
 
-The TPU-native replacement for the driver-built BVH (core/accel.h:21-45)
-shaped by measured v5e microbenchmarks (benchmarks/micro_tpu.py):
-
-- dense ray-AABB slab tests run at ~256 Gtests/s on the VPU;
-- gathers of WIDE rows from SMALL tables run near memory speed
-  (~290 GB/s from a 1024-row table), while per-ray gathers from large
-  tables crawl at ~9 GB/s;
-- therefore: keep the spatial index SMALL and FLAT (<= ~2048 clusters),
-  test it densely, and fetch triangle data in large per-TILE blocks
-  instead of per-ray pointers.
+The replacement for the driver-built BVH (core/accel.h:21-45), built on
+one hypothesis about wide vector machines: dense ray-AABB slab tests are
+cheap, gathers of WIDE rows from SMALL tables are fast, and per-ray
+pointer chasing through large tables is slow. So the spatial index stays
+SMALL and FLAT (a few thousand clusters), is tested densely, and triangle
+data is fetched in large per-TILE blocks instead of per-ray pointers.
 
 Build (all jittable XLA ops, runs on-device - the "driver" is XLA):
 1. Morton-sort triangles by centroid (accel/morton.py), so consecutive
@@ -42,10 +38,9 @@ _PAD_POS = 1e30
 def _choose_k(n_tris: int, max_clusters: int, min_k: int = 128) -> int:
     """Smallest power-of-two cluster size >= min_k with <= max_clusters.
 
-    min_k defaults to 128 = the VPU lane width: the Pallas sweep kernel
-    DMAs one [12, K] block per visit and tests it as a full-width
-    [R, K] vector op, so K < 128 only wastes lanes and forces unaligned
-    lane-sliced DMAs (which Mosaic rejects).
+    min_k defaults to 128: the sweep loads one [16, K] block per visit
+    and tests it as a dense [R, K] vector op, so a small K only adds
+    per-visit overhead.
     """
     k = min_k
     while (n_tris + k - 1) // k > max_clusters:
@@ -61,11 +56,11 @@ class ClusterAccel:
     aabb_lo: jnp.ndarray   # f32 [C, 3]
     aabb_hi: jnp.ndarray   # f32 [C, 3]
     blocks: jnp.ndarray    # f32 [C, K, 12]: v0, e1, e2, tri_id+1, pad, pad
-    # Component-major Baldwin-Weber copy for the Pallas sweep kernel:
-    # triangles on the lane axis, one [16, K] block DMA'd per
-    # (tile, cluster) visit. Rows 0-2 n = e1 x e2, row 3 plane offset d,
-    # rows 4-7 r1/c1, rows 8-11 r2/c2, row 12 tri_id+1 (as a float
-    # VALUE), rows 13-15 pad to the 8-sublane tiling (see _finish_build).
+    # Component-major Baldwin-Weber copy for the sweep kernel
+    # (kernels/triton_sweep.py): triangles on the last axis, one [16, K]
+    # block loaded per (tile, cluster) visit. Rows 0-2 n = e1 x e2, row 3
+    # plane offset d, rows 4-7 r1/c1, rows 8-11 r2/c2, row 12 tri_id+1
+    # (as a float VALUE), rows 13-15 v0 (see _finish_build).
     blocks_t: jnp.ndarray  # f32 [C, 16, K]
 
     @property
@@ -201,7 +196,7 @@ def _sah_leaves(v0, v1, v2, k: int, n_bins: int = 16,
     midpoint - the same quality/size trade the reference's driver AS
     build makes on the host (core/accel.h:21-45). Costs more (partially
     filled) clusters; buys tighter, less-overlapping AABBs = fewer
-    visited sweep columns per ray, the binding cost (docs/PERF.md 0.21).
+    visited sweep columns per ray, the binding cost.
 
     deep_ratio: if set, keep splitting BELOW k while the children's AABB
     areas sum to < deep_ratio * parent area. A visit costs one fixed
@@ -408,10 +403,9 @@ def build_clusters(v0, v1, v2, max_clusters: int = 512,
 
     method: "morton" = Morton-sort + fixed chunks; "median" = recursive
     median splits (_median_order), ~40% less total AABB surface area.
-    NEITHER dominates: on real frames median wins the coherent primary
-    trace (602 -> 341 ms/sample) and LOSES ~3x on incoherent bounce
-    tiles, so production builds BOTH and picks per call
-    (build_scene_clusters + render.py; docs/PERF.md round-2 log).
+    NEITHER dominates on visited columns: median suits the coherent
+    primary trace, Morton the incoherent bounce tiles, so production
+    builds BOTH and picks per call (build_scene_clusters + render.py).
     """
     t = v0.shape[0]
     k = _choose_k(t, max_clusters, min_k)
@@ -442,12 +436,8 @@ def build_clusters(v0, v1, v2, max_clusters: int = 512,
             leaves = _sah_leaves(np.asarray(v0), np.asarray(v1),
                                  np.asarray(v2), k, deep_ratio=deep)
         # Morton-order the LEAVES: the SAH builds emit leaves in DFS
-        # stack order, which misaligns spatial siblings relative to the
-        # ALIGNED id groups the sweep's fetch-group DMA reads
-        # (kernels/pallas_sweep start_dma at PT_FETCH_GROUP > 1).
-        # Measured (benchmarks/pair_stats.py, 51k/640 clusters, bounce
-        # tiles): DFS order g=2 inflates iterations +49%; Morton order
-        # restores the sibling coincidence the fetch-group axis needs.
+        # stack order; Morton order puts spatial siblings at neighbouring
+        # cluster ids, so a tile's schedule reads nearby blocks.
         # Schedule quality is unaffected - cull + schedule treat ids
         # opaquely.
         if box_override is not None:
@@ -557,9 +547,8 @@ def _finish_build(sv0, sv1, sv2, sid, k, pad, t) -> ClusterAccel:
         aabb_hi = jnp.where(empty[:, None], _PAD_POS, aabb_hi)
 
     # Triangle ids ride as FLOAT VALUES (id + 1; exact below 2^24), never
-    # as bitcast integers: small int bit patterns are f32 denormals and
-    # TPU vector units flush denormals to zero (and canonicalize NaNs),
-    # silently corrupting bit-smuggled payloads.
+    # as bitcast integers: small int bit patterns are f32 denormals, which
+    # a flush-to-zero vector unit would silently corrupt.
     id_val = (sid + 1).astype(jnp.float32)
     e1 = sv1 - sv0
     e2 = sv2 - sv0
@@ -568,12 +557,16 @@ def _finish_build(sv0, sv1, sv2, sid, k, pad, t) -> ClusterAccel:
          jnp.zeros((sv0.shape[0], 2), jnp.float32)], axis=1)
     blocks = rows.reshape(c, k, 12)
 
-    # Pallas-kernel layout: Baldwin-Weber precomputed transform. Per-pair
-    # work drops from ~59 VPU ops (cross products recomputed per column)
-    # to ~46: n = e1 x e2 (== the classic MT determinant axis, so the
+    # Sweep-kernel layout: Baldwin-Weber precomputed transform. Per-pair
+    # work drops from ~59 vector ops (cross products recomputed per
+    # column) to ~46: n = e1 x e2 (== the classic MT determinant axis, so the
     # same DET_EPS reject semantics), plane offset d, and the two
     # barycentric row vectors r1 = (e2 x n)/|n|^2, r2 = (n x e1)/|n|^2
-    # with offsets c1/c2 - u = r1.h + c1 at the plane hit point h.
+    # with offsets c1/c2 - u = r1.h + c1 at the plane hit point h. The
+    # sweep uses v0 (rows 13-15) instead of d/c1/c2: t = n.(v0 - o)/n.dir
+    # and u = r1.(o - v0 + t dir) subtract the vertex FIRST, so a hit far
+    # from the world origin keeps its precision (the offset form loses
+    # ~|o|/t ulps to cancellation).
     # Degenerate/pad triangles have n = 0 -> denom = 0 -> never hit.
     nrm = jnp.cross(e1, e2)
     dpl = jnp.sum(nrm * sv0, axis=1, keepdims=True)
@@ -584,8 +577,7 @@ def _finish_build(sv0, sv1, sv2, sid, k, pad, t) -> ClusterAccel:
     r2 = jnp.cross(nrm, e1) * inv_det
     c2 = -jnp.sum(r2 * sv0, axis=1, keepdims=True)
     rows_bw = jnp.concatenate(
-        [nrm, dpl, r1, c1, r2, c2, id_val[:, None],
-         jnp.zeros((sv0.shape[0], 3), jnp.float32)], axis=1)  # [T, 16]
+        [nrm, dpl, r1, c1, r2, c2, id_val[:, None], sv0], axis=1)  # [T, 16]
     bt = jnp.swapaxes(rows_bw.reshape(c, k, 16), 1, 2)        # [C, 16, K]
     return ClusterAccel(aabb_lo=aabb_lo, aabb_hi=aabb_hi, blocks=blocks,
                         blocks_t=bt)
@@ -599,11 +591,10 @@ def build_scene_clusters(scene: Scene, max_clusters: int = 2048,
     closest-hit (primary + bounce). Both default to the binned-SAH
     spatial-split build (SBVH-style): SAH leaves win EVERY batch class
     by exact visited-column counts (x1.55 primary / x1.46 bounce /
-    x1.44 shadow vs median, x2.05 shadow vs the round-1 morton pick;
-    docs/PERF.md 0.22) and spatial splits stack another x1.13 / x1.02 /
-    x1.21 by clipping the big floor/wall triangles that bloat leaf
-    AABBs (0.25). PT_FINE_METHOD / PT_COARSE_METHOD env knobs override
-    the builds for A/Bs
+    x1.44 shadow vs median) and spatial splits stack another x1.13 /
+    x1.02 / x1.21 by clipping the big floor/wall triangles that bloat
+    leaf AABBs. Column counts are platform-free. PT_FINE_METHOD /
+    PT_COARSE_METHOD env knobs override the builds for A/Bs
     (sahsplit | sahleaf | sahdeep | median | morton | sah).
     """
     fine_method = os.environ.get("PT_FINE_METHOD", "sahsplit")

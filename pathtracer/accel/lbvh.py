@@ -1,4 +1,4 @@
-"""On-TPU LBVH builder: Morton sort + Karras radix tree + threaded layout.
+"""On-device LBVH builder: Morton sort + Karras radix tree + threaded layout.
 
 Replaces the reference's driver-side acceleration-structure build
 (core/accel.h:21-45, `buildAccelerationStructuresKHR`) with an entirely

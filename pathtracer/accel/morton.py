@@ -1,7 +1,7 @@
 """Morton (Z-order) codes for LBVH construction.
 
 30-bit 3D Morton codes (10 bits/axis) over triangle centroids, computed with
-pure uint32 bit arithmetic on-device. This is the first stage of the on-TPU
+pure uint32 bit arithmetic on-device. This is the first stage of the on-device
 LBVH builder that replaces the reference's driver-built acceleration
 structure (core/accel.h:21-45; SURVEY.md par.2.2 "GPU driver AS build").
 """

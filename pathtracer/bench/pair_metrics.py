@@ -1,10 +1,7 @@
-"""Auditable packet-roofline metrics for the bench output (VERDICT r4 #5).
+"""Packet column counts on the real bounce-1 batch, for the bench output.
 
-The headline claim ("the sweep runs at the measured pair roofline; the
-only lever is fewer columns, and packet waste is x2.05") lived scattered
-across docs/PERF.md 0.20/0.21/0.33-0.40. This module computes the three
-numbers that make the claim auditable, ON the benched scene, from exact
-schedule/stop data (counts, not timings - platform independent):
+Computed ON the benched scene from exact schedule/stop data (counts, not
+timings, so every platform agrees):
 
   tile_visited_cols_mean  columns a tile's sweep visits (lower bound:
                           schedule entries in front of the tile's
@@ -12,21 +9,11 @@ schedule/stop data (counts, not timings - platform independent):
   ray_needed_cols_mean    columns each ray individually needs
   packet_waste            visited/needed - the structural SIMT-style
                           overshoot of tile-granular sweeping
-
-plus the measured kernel-rate model they imply:
-
   sweep_pairs_g           ray-triangle pair tests the visited columns
                           represent (cols x TILE_RAYS x K)
-  sweep_model_ms          visited_iters x SWEEP_US_PER_ITER - what the
-                          Pallas sweep should cost for this batch at its
-                          measured per-iteration rate (PERF.md 0.33
-                          validated this model against the chip: 315
-                          predicted vs 270 measured ms)
-  sweep_gpairs_per_s      the kernel's pair rate implied by the model
 
-The probe runs on the REAL bounce-1 batch (cosine-scattered from true
-primary hits) - the batch every PERF.md attribution used - so the
-numbers are directly comparable to the historical ledger.
+The batch is cosine-scattered from true primary hits (bounce1_rays), the
+batch every sweep measurement of this repository uses.
 """
 
 from __future__ import annotations
@@ -35,20 +22,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Measured per-iteration cost of the production Pallas sweep on v5e
-# (benchmarks/sweep_attrib.py at the production cpi=8, docs/PERF.md
-# 0.45): 1.136 us = 0.717 ALU + 0.149 loop floor + 0.175 DMA starts +
-# 0.094 overlap. Frame model validated: 252 predicted vs 270 ms
-# measured sweep at headline (residual ~0.5 us/tile ring/pipeline).
-SWEEP_US_PER_ITER = 1.136
 
+def bounce1_rays(scene, cfg, camera, n_rays: int):
+    """The real bounce-1 batch: n_rays cosine-scattered rays from the
+    primary hits of the first n_rays pixels (row-major) of frame 0.
 
-def bounce1_pair_metrics(scene, cfg, camera, max_rays: int = 1 << 21):
-    """Exact visited/needed column stats on the real bounce-1 batch.
-
-    Returns a JSON-ready dict (see module docstring). Counts are exact
-    data products of the schedule + stop rule, so CPU and TPU agree;
-    only SWEEP_US_PER_ITER is a (documented) measured constant.
+    Rays whose primary ray missed are parked (origin 1e30), as the
+    integrator parks dead lanes. Returns (o, d) f32[n_rays, 3].
     """
     from pathtracer.integrator import camera as cam_mod
     from pathtracer.kernels import packet
@@ -57,16 +37,13 @@ def bounce1_pair_metrics(scene, cfg, camera, max_rays: int = 1 << 21):
 
     accel = scene.clusters_fine if scene.clusters_fine is not None \
         else scene.clusters
-    tile_rays = packet.TILE_RAYS
     w, h = cfg.width, cfg.height
-    n = min(w * h, max_rays) // tile_rays * tile_rays
     cs = camera.state() if hasattr(camera, "state") else camera
-    pix = jnp.arange(n, dtype=jnp.int32)
-    samp = jnp.zeros((n,), jnp.uint32)
-    k = accel.tris_per_cluster
+    pix = jnp.arange(n_rays, dtype=jnp.int32) % (w * h)
+    samp = jnp.zeros((n_rays,), jnp.uint32)
 
     @jax.jit
-    def bounce_batch():
+    def batch():
         o, d = cam_mod.generate_primary_rays(cs, w, h, cfg.fov_deg, pix,
                                              samp, 0)
         hit = packet.intersect_clusters(accel, o, d, 1e-3, 1e20,
@@ -90,6 +67,23 @@ def bounce1_pair_metrics(scene, cfg, camera, max_rays: int = 1 << 21):
                        jnp.full_like(p, 1e30))
         d2 = jnp.where(live[:, None], d2, jnp.array([[0.0, 0.0, 1.0]]))
         return o2, d2
+
+    return jax.block_until_ready(batch())
+
+
+def bounce1_pair_metrics(scene, cfg, camera, max_rays: int = 1 << 21):
+    """Exact visited/needed column stats on the real bounce-1 batch.
+
+    Returns a JSON-ready dict (see module docstring). Counts are exact
+    data products of the schedule + stop rule, so every platform agrees.
+    """
+    from pathtracer.kernels import packet
+
+    accel = scene.clusters_fine if scene.clusters_fine is not None \
+        else scene.clusters
+    tile_rays = packet.TILE_RAYS
+    n = min(cfg.width * cfg.height, max_rays) // tile_rays * tile_rays
+    k = accel.tris_per_cluster
 
     @jax.jit
     def schedule_stats(o2, d2):
@@ -129,7 +123,7 @@ def bounce1_pair_metrics(scene, cfg, camera, max_rays: int = 1 << 21):
         return (jnp.where(tile_live, vis, 0),
                 jnp.where(live, need, 0), tile_live, live)
 
-    o2, d2 = jax.block_until_ready(bounce_batch())
+    o2, d2 = bounce1_rays(scene, cfg, camera, n)
     vis, need, tile_live, live = jax.block_until_ready(
         schedule_stats(o2, d2))
     vis = np.asarray(vis)[np.asarray(tile_live)]
@@ -143,12 +137,6 @@ def bounce1_pair_metrics(scene, cfg, camera, max_rays: int = 1 << 21):
     per_ray_paid = float(vis.sum()) * tile_rays / max(1, need.size)
     waste = per_ray_paid / max(1e-9, needed_mean)
 
-    # Kernel-rate model for the closest-call sweep over this batch
-    from pathtracer.kernels import pallas_sweep
-    cpi = max(1, pallas_sweep.LANES // k) * pallas_sweep._cpi_mult(
-        k, accel.n_clusters)
-    iters = float(np.ceil(vis / cpi).sum())
-    model_ms = iters * SWEEP_US_PER_ITER * 1e-3
     pairs = float(vis.sum()) * tile_rays * k
     return {
         "rays_probed": int(need.size),
@@ -156,9 +144,5 @@ def bounce1_pair_metrics(scene, cfg, camera, max_rays: int = 1 << 21):
         "ray_needed_cols_mean": round(needed_mean, 1),
         "packet_waste": round(waste, 2),
         "sweep_pairs_g": round(pairs / 1e9, 2),
-        "sweep_model_ms": round(model_ms, 1),
-        "sweep_gpairs_per_s": round(pairs / (model_ms * 1e-3) / 1e9, 1),
-        "sweep_us_per_iter": SWEEP_US_PER_ITER,
-        "cpi": int(cpi),
         "tris_per_cluster": int(k),
     }

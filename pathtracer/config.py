@@ -22,12 +22,12 @@ from __future__ import annotations
 
 import dataclasses
 
-# Wavefront pool-saturation point, in lanes (rays): the measured scale
-# above which growing the per-call pool (via spp_batch / frame_batch)
-# stops cutting swept columns on v5e (docs/PERF.md 0.40: headline
-# 1080p x 4 spp = 8.3M lanes is already saturated; 0.43: every config
-# below it wins from batching toward it). Also the default
-# PT_MAX_WAVEFRONT spatial-part split threshold (render.py). All
+# Wavefront pool-saturation point, in lanes (rays): the scale above which
+# growing the per-call pool (via spp_batch / frame_batch) is taken to stop
+# cutting swept columns (1080p x 4 spp = 8.3M lanes). Also the default
+# PT_MAX_WAVEFRONT spatial-part split threshold (render.py), which bounds
+# the integrator's per-lane state in device memory. Tuned on the previous
+# accelerator, whose device memory was 16 GB; untested on the GPU. All
 # auto-frame-batch heuristics derive from this one constant.
 POOL_SATURATION_LANES = 1 << 23
 
@@ -37,8 +37,8 @@ def saturating_frame_batch(width: int, height: int, spp: int,
     """Frames/step that grow the pool toward POOL_SATURATION_LANES.
 
     The '--frame-batch auto' policy (app.py, benchmarks/run_configs.py):
-    identical estimator/sample set, measured x2.46 on bunny-class scenes
-    and neutral once saturated (docs/PERF.md 0.40/0.43).
+    identical estimator/sample set; a bigger pool cuts swept columns
+    until it saturates.
     """
     pool = width * height * spp
     return max(1, min(cap, POOL_SATURATION_LANES // pool))
@@ -97,28 +97,26 @@ class RenderConfig:
     t_max: float = 1e20
     shadow_eps: float = 1e-4
 
-    # Cell-interleaved env-NEE sampling (net-new; docs/PERF.md 0.44):
+    # Cell-interleaved env-NEE sampling (net-new):
     # pixels in an NxN screen cell share one env-light direction per
     # (sample, depth) draw, so env shadow batches collapse from ~one
     # direction per lane to ~one per cell and the occlusion sort packs
-    # them into direction-coherent tiles (the r5 config-4 attribution
-    # measured incoherent env shadow rays at 2.4 us/query = 70% of the
-    # envmap frame, ~8x every other ray class). Per-pixel estimator and
+    # them into direction-coherent tiles (incoherent env shadow rays are
+    # the costliest ray class of the envmap config). Per-pixel estimator
+    # and
     # variance are UNCHANGED (the direction is still drawn from the env
     # pdf; only cross-pixel correlation is introduced - interleaved
     # sampling), so accumulation converges identically; low-spp noise is
     # blocky instead of white. 1 = independent per-pixel draws.
     env_nee_cell: int = 8
 
-    # Russian roulette on env-NEE shadow rays (net-new; PERF.md 0.44):
+    # Russian roulette on env-NEE shadow rays (net-new):
     # trace the env shadow ray with probability q = clip(m * lum(T),
     # 1/8, 1) where T is the path throughput, and weight surviving
     # contributions by 1/q - the reference's own path-RR principle
     # (raygen.rgen:286-290) applied at the shadow-ray site. Unbiased
-    # thinning, but it adds variance where paths are dim - and after
-    # the 0.44.2 sampling dedup removed the real cost, the chip
-    # measures RR time-NEUTRAL on config 4 (723.5 on vs 723.8 off),
-    # so the default is OFF (m = 0): zero-variance-cost estimator.
+    # thinning, but it adds variance where paths are dim, so the default
+    # is OFF (m = 0): zero-variance-cost estimator.
     # Set m > 0 only for scenes whose deep-bounce occlusion calls
     # actually dominate.
     env_shadow_rr: float = 0.0
@@ -129,13 +127,15 @@ class RenderConfig:
     # BSDF pdf. Default False = the fixed, consistent estimator.
     reference_quirks: bool = False
 
-    # Intersection backend: "cluster" (packet/tile traversal - the TPU fast
+    # Intersection backend: "cluster" (packet/tile traversal - the fast
     # path), "bvh" (threaded LBVH pointer chase), or "brute" (O(n) oracle).
     intersector: str = "cluster"
-    # Cluster-sweep execution: "pallas" runs the per-tile sweep as one
-    # fused TPU kernel (kernels/pallas_sweep.py); "xla" uses the
-    # while_loop formulation (kernels/packet.py).
-    traversal_backend: str = "pallas"
+    # Cluster-sweep route (kernels/packet.resolve_backend): "triton" runs
+    # each tile's sweep as one program of a Pallas Triton kernel
+    # (kernels/triton_sweep.py, GPU only); "xla" uses the lockstep
+    # while_loop formulation; "auto" picks the platform's route and
+    # raises on a platform that has none.
+    traversal_backend: str = "auto"
 
     # Ray-batch chunking: rays per jitted wavefront launch. 0 = whole frame.
     rays_per_chunk: int = 0
@@ -145,10 +145,9 @@ class RenderConfig:
     # bounce loop, so (a) the packet traversal inherits a coherent order
     # and skips its per-chunk/per-call coherence sorts, and (b) dead lanes
     # compact to the back of the wavefront where whole traversal chunks
-    # skip via lax.cond (static-shape stream compaction). Measured on v5e:
-    # the [N,16] state permute costs ~47 ms + 86 ms scatter at 2M lanes
-    # (docs/PERF.md round-2 log), so this LOSES to per-chunk sorting at
-    # 1080p - default False.
+    # skip via lax.cond (static-shape stream compaction). The [N,16] state
+    # permute and scatter cost more than per-chunk sorting saved on the
+    # previous accelerator - default False; untested on the GPU.
     wavefront_sort: bool = False
 
     # Packet-layer per-chunk coherence sort (kernels/packet.py): sort each
@@ -158,10 +157,9 @@ class RenderConfig:
 
     # Trace ALL spp samples of a frame as ONE wavefront (spp * W * H
     # lanes) instead of a host loop of per-sample programs. The coherence
-    # sort's pool grows spp-fold: measured x1.49 fewer bounce sweep
-    # columns per ray at 4 spp (docs/PERF.md 0.27) and chip-confirmed
-    # +1.9% end-to-end at 1080p/4spp (0.31); identical estimator (RNG is
-    # keyed on (pixel, sample) either way). Library default stays False
+    # sort's pool grows spp-fold: x1.49 fewer bounce sweep columns per
+    # ray at 4 spp (an exact count); identical estimator (RNG is keyed on
+    # (pixel, sample) either way). Library default stays False
     # because wavefront memory scales linearly with spp (64 spp would be
     # a 132M-lane wavefront at 1080p); bench.py and the headline configs
     # enable it at spp <= 4.
@@ -171,13 +169,13 @@ class RenderConfig:
     # spp pools as ONE wavefront (requires spp_batch). The estimator is
     # the identical sample set (RNG keys on frame*spp + s either way);
     # the film folds all frame_batch frame-means in one accumulate step.
-    # Pool growth is the one measured lever on packet stop-tail waste
-    # (joint-sort columns: x1.49 at 4 lanes/pixel vs 1 - PERF.md 0.27).
+    # Pool growth is the one counted lever on packet stop-tail waste
+    # (joint-sort columns: x1.49 at 4 lanes/pixel vs 1).
     frame_batch: int = 1
 
     # BENCH-ONLY: drop the NEE stage entirely (changes the estimator!).
-    # Used by benchmarks/depth_attrib.py + env_ab.py to attribute the
-    # shadow-ray cost within real frames. Never set in production.
+    # Attributes the shadow-ray cost within real frames. Never set in
+    # production.
     skip_nee: bool = False
 
     # Verified primary-hit prediction across the progressive spp loop:
@@ -225,8 +223,8 @@ class RenderConfig:
     # Stochastic bilinear texture filtering: jitter the texel coordinate
     # by a per-(lane, bounce) uniform and take ONE tap whose expectation
     # is the bilinear kernel, instead of 4 deterministic taps. Texture
-    # gathers are latency-bound (~20+ ms per 2M-lane tap on v5e), so this
-    # cuts the texture path cost ~4x; the extra noise converges with spp.
+    # gathers are latency-bound, so one tap cuts the texture path's
+    # gathers 4x; the extra noise converges with spp.
     # False = exact 4-tap bilinear (the reference's deterministic linear
     # sampler, core/texture.cpp:57-66).
     stochastic_texture_filtering: bool = True
@@ -251,7 +249,7 @@ class RenderConfig:
             raise ValueError(f"unknown sky model: {self.sky!r}")
         if self.intersector not in ("cluster", "bvh", "brute"):
             raise ValueError(f"unknown intersector: {self.intersector!r}")
-        if self.traversal_backend not in ("pallas", "xla"):
+        if self.traversal_backend not in ("auto", "triton", "xla"):
             raise ValueError(
                 f"unknown traversal backend: {self.traversal_backend!r}")
         if self.sampler not in ("pcg", "sobol"):

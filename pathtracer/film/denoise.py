@@ -3,7 +3,7 @@
 The reference carries a vestigial DENOISER_WG_SIZE constant (common.h:6)
 but ships no denoiser; real-time path tracing at 4 spp/frame relies on
 one. This is the classic Dammertz et al. a-trous wavelet reconstruction
-with SVGF-style edge-stopping functions, shaped for TPU: every iteration
+with SVGF-style edge-stopping functions, shaped for a vector machine: every iteration
 is 25 static full-image shifted multiply-adds (XLA fuses the whole
 filter; no gathers, no data-dependent control flow).
 

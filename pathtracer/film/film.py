@@ -101,40 +101,32 @@ def rmse(a, b) -> float:
 def write_png(path: str, image) -> None:
     """Write an image to PNG. Accepts f32 [0,1] or u8, [H,W,3] or [H,W].
 
-    Uses the native C++ encoder (utils/native.py) with a PIL fallback.
+    Uses the native C++ encoder (utils/native.py), else utils/png.py.
     """
     arr = np.asarray(image)
     if arr.dtype != np.uint8:
         arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
-    from pathtracer.utils import native
+    from pathtracer.utils import native, png
 
     data = native.png_encode(arr)
-    if data is not None:
-        with open(path, "wb") as f:
-            f.write(data)
-        return
-    from PIL import Image
-
-    Image.fromarray(arr).save(path)
+    with open(path, "wb") as f:
+        f.write(data if data is not None else png.encode(arr))
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read a PNG as f32 [0,1] [H,W,C] (native decoder, PIL fallback)."""
+    """Read a PNG as f32 [0,1] [H,W] or [H,W,C] (native decoder, else
+    utils/png.py)."""
     with open(path, "rb") as f:
         raw = f.read()
 
-    from pathtracer.utils import native
+    from pathtracer.utils import native, png
 
     arr = native.png_decode(raw)
-    if arr is not None:
-        out = arr.astype(np.float32) / 255.0
-        return out[..., 0] if arr.shape[2] == 1 else out
-    from PIL import Image
-
-    import io
-
-    return np.asarray(Image.open(io.BytesIO(raw)), np.float32) / 255.0
+    if arr is None:
+        arr = png.decode(raw)
+    out = arr.astype(np.float32) / 255.0
+    return out[..., 0] if arr.shape[2] == 1 else out
 
 
 def save_checkpoint(path: str, film: Film) -> None:

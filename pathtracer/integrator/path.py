@@ -1,6 +1,6 @@
 """Wavefront path integrator.
 
-The TPU-native re-design of the reference's device-side renderer: the
+The re-design of the reference's device-side renderer for JAX: the
 iterative unidirectional path tracer in raygen.rgen:95-307 with surface
 interaction fetch from closesthit.rchit and environment light from
 miss.rmiss. Where the reference runs one SIMT lane per pixel, this runs a
@@ -77,10 +77,9 @@ def _sample_texture(textures, tex_wh, tex_id, u, v, tex_u=None):
     nonlinearities - a small convex bias toward brighter values exists
     exactly at hard texel edges (elsewhere neighboring texels are close
     and the curvature term is negligible). Texture gathers are
-    latency-bound at ~20+ ms per 2M-lane tap on v5e (docs/PERF.md
-    round-2 log), so 1 tap vs 4 is the difference between textures
-    costing 25% and 100%+ of a frame; cfg.stochastic_texture_filtering
-    = False selects the reference's exact deterministic sampler.
+    latency-bound, so 1 tap instead of 4 cuts the texture path's gathers
+    4x; cfg.stochastic_texture_filtering = False selects the reference's
+    exact deterministic sampler.
     """
     tid = jnp.maximum(tex_id, 0)
     wh = tex_wh[tid]                                  # [N, 2]
@@ -118,7 +117,7 @@ def pack_material_rows(scene: Scene) -> jnp.ndarray:
     alpha type_val atex_val mrtex_val ntex_val -> f32 [M, 16]. fetch_
     surface then does a single [N,16] row-gather instead of ~10 narrow
     per-property gathers per bounce. Integer fields ride as VALUES + 1
-    (exact below 2^24; bitcasts are denormal-flushed on TPU).
+    (exact below 2^24; a bitcast small int would be an f32 denormal).
     """
     f = lambda a: a.astype(jnp.float32)  # noqa: E731
     cols = [scene.mat_albedo, scene.mat_emission,
@@ -141,8 +140,7 @@ def pack_surface_rows(scene: Scene) -> jnp.ndarray:
 
     The naive closest-hit fetch is ~14 narrow gathers from large tables
     (indices -> positions/normals/uvs/tangents x3 corners + face material),
-    which TPU gathers serialize at ~0.5 ms each (benchmarks/micro_tpu.py).
-    One [T, 24|32]-f32 row per triangle turns that into a single wide-row
+    each paying its own latency. One [T, 24|32]-f32 row per triangle turns that into a single wide-row
     gather. Position is NOT stored: it is reconstructed as o + t*d.
 
     Row layout: n0 n1 n2 (9) | uv0 uv1 uv2 (6) | geom_normal (3) |
@@ -155,8 +153,8 @@ def pack_surface_rows(scene: Scene) -> jnp.ndarray:
     p2 = scene.positions[i2]
     gn = vmath.normalize(vmath.cross(p1 - p0, p2 - p0))
     # material id rides as a float VALUE (mid + 1, exact below 2^24), never
-    # a bitcast: small int bit patterns are f32 denormals, which TPU vector
-    # ops flush to zero (docs/PERF.md "TPU numerics traps")
+    # a bitcast: small int bit patterns are f32 denormals, which a
+    # flush-to-zero vector unit would corrupt
     mid_val = (scene.face_material.astype(jnp.int32) + 1).astype(jnp.float32)
     cols = [scene.normals[i0], scene.normals[i1], scene.normals[i2],
             scene.uvs[i0], scene.uvs[i1], scene.uvs[i2],
@@ -222,8 +220,7 @@ def fetch_surface(scene: Scene, surf_rows, hit: Hit, o, d,
             and scene.tex_comp is not None:
         # Composite path: ONE stochastic 12-byte-row gather fetches the
         # albedo+metal-rough+normal texels for the lane's material (wide
-        # gather rows amortize latency: 12.3 vs 3 x 23 ms per 2M lanes,
-        # docs/PERF.md round-2 log). Per-material maps were resampled to
+        # gather rows amortize latency). Per-material maps were resampled to
         # shared dims at build; -1 slots decode to neutral but the same
         # has_* masks gate their use.
         u, v = uv[..., 0], uv[..., 1]
@@ -346,13 +343,12 @@ def _nee_env(scene: Scene, cfg: RenderConfig, surf: Surface, view,
     """
     from pathtracer.scene import envlight
 
-    # Cell-interleaved draw (cfg.env_nee_cell, docs/PERF.md 0.44): key
+    # Cell-interleaved draw (cfg.env_nee_cell): key
     # the env-direction stream on the pixel's NxN screen cell instead of
     # the pixel, so a cell's lanes share one direction per (sample,
     # depth). Two wins: (a) the occlusion sort packs env shadow rays
     # into direction-coherent tiles; (b) the env SAMPLING machinery -
-    # CDF binary search + pdf + radiance lookups, measured 341 ms per
-    # bounce at 1M dense lanes on chip (PERF.md 0.44.2) - runs ONCE PER
+    # CDF binary search + pdf + radiance lookups - runs ONCE PER
     # (cell, sample) on a table of n_cells x S entries and expands to
     # lanes with one wide-row gather. Bit-exact: identical inputs,
     # identical IEEE results, just deduplicated. Keyed on TRUE pixel
@@ -677,9 +673,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
         # One wide [T, 9] row (v0|v1|v2) per triangle, packed once per
         # trace: hint verification then costs ONE wide-row gather per
         # hint instead of 4 narrow ones (indices + 3 corners) - wide
-        # rows amortize gather latency (docs/PERF.md 0.10 texture
-        # measurements: 12-byte row 12.3 ms vs 3x 4-byte taps 69 ms at
-        # 2M lanes).
+        # rows amortize gather latency.
         tv0, tv1, tv2 = scene.tri_vertices(jnp.arange(scene.n_tris))
         verify_rows = jnp.concatenate([tv0, tv1, tv2], axis=1)
 
@@ -692,9 +686,8 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
             # any key - the same reason the packet layer skips sorting
             # primaries, render.py intersect_fn)
             # ONE argsort + two row-gathers per bounce replaces the packet
-            # layer's per-chunk/per-call coherence sorts (docs/PERF.md
-            # par.3.1: per-chunk prep was ~40% of deep-bounce frames) and
-            # compacts dead lanes to the tail for the chunk-skip.
+            # layer's per-chunk/per-call coherence sorts and compacts dead
+            # lanes to the tail for the chunk-skip.
             order = _wavefront_order(scene, o, d, active)
             row = jnp.concatenate(
                 [o, d, throughput, radiance, prev_pdf[:, None],
@@ -853,7 +846,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
 
         # --- NEE (raygen.rgen:168-261) ---
         shade = active & ~passthrough & ~is_dielectric
-        # cfg.skip_nee (bench-only, benchmarks/depth_attrib.py): drop the
+        # cfg.skip_nee (bench-only shadow-cost attribution): drop the
         # NEE stage to attribute its cost in real frames.
         skip_nee = cfg.skip_nee
         if scene.has_lights and not skip_nee:
@@ -983,10 +976,11 @@ def trace_paths(scene: Scene, cfg: RenderConfig, origins, directions,
     if cfg.max_depth > 1:
         # Bounce 0 peeled: primary rays keep their swizzled screen order
         # (no coherence sort). Then fori (not while-any(active)): an
-        # early-exit while was measured 2x SLOWER end-to-end - the
-        # all-lanes cond reduction serializes the bounce pipeline, while
-        # compacted dead lanes already make late bounces cheap
-        # (chunk-skip + empty-tile termination).
+        # early-exit while measured 2x SLOWER end-to-end on the previous
+        # accelerator (untested on the GPU) - the all-lanes cond reduction
+        # serializes the bounce pipeline, while compacted dead lanes
+        # already make late bounces cheap (chunk-skip + empty-tile
+        # termination).
         carry = bounce(0, carry, primary=True)
         if cfg.max_depth > 2:
             carry = jax.lax.fori_loop(1, cfg.max_depth - 1, bounce, carry)

@@ -16,6 +16,7 @@ All functions map unit directions [..., 3] -> linear radiance [..., 3].
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -93,7 +94,9 @@ def hosek_wilkie_sky(d, sun_dir, intensity: float = 20.0):
         mean_rad = _quintic_bezier(jnp.asarray(rad), t)
         xyz.append(_hw_F(theta, gamma, c) * mean_rad)
     xyz = jnp.stack(xyz, axis=-1)
-    rgb = xyz @ jnp.asarray(_XYZ_TO_RGB).T
+    # HIGHEST keeps the GPU's float32 product out of TF32
+    rgb = jnp.matmul(xyz, jnp.asarray(_XYZ_TO_RGB).T,
+                     precision=jax.lax.Precision.HIGHEST)
     return jnp.maximum(rgb, 0.0) * intensity
 
 
@@ -102,8 +105,7 @@ def envmap_radiance(envmap, d, blocks=None):
 
     blocks: optional pre-packed 2x2 footprint rows f32[H,W,12]
     (Scene.envmap_blocks) - one wide-row gather instead of four narrow
-    taps, bit-identical filtering (the env lookup measured ~24% of the
-    envmap frame with four taps, docs/PERF.md 0.44.2).
+    taps, bit-identical filtering.
     """
     h, w = envmap.shape[0], envmap.shape[1]
     u = (jnp.arctan2(d[..., 2], d[..., 0]) / (2.0 * M_PI) + 0.5) * w - 0.5

@@ -9,7 +9,7 @@ chase with NO stack - ideal for a lockstep SPMD machine: a ray batch
 advances one node per iteration of a `lax.while_loop`, with gathers for node
 data and jnp.where merges instead of SIMT divergence.
 
-TPU memory-system design (this is the hot loop - SURVEY.md par.7 hard parts
+Memory-system design (this is the hot loop - SURVEY.md par.7 hard parts
 1-2, "gather-heavy workloads"):
 
 - **One 32-byte gather per step.** Node data is packed into a single
@@ -63,8 +63,8 @@ def pack_bvh(bvh: Bvh, indices, positions) -> PackedBvh:
     negligible next to traversal traffic) and ahead of time.
     """
     # links/ids ride as float VALUES (x+1, exact below 2^24), never as
-    # bitcast integers: TPU vector ops flush f32 denormals to zero and
-    # canonicalize NaNs, corrupting bit-smuggled payloads (docs/PERF.md).
+    # bitcast integers: a vector unit that flushes f32 denormals to zero
+    # or canonicalizes NaNs would corrupt bit-smuggled payloads.
     miss_val = (bvh.miss_link + 1).astype(jnp.float32)
     tri_val = (bvh.tri_id + 1).astype(jnp.float32)
     nodes = jnp.concatenate(

@@ -29,7 +29,12 @@ from pathtracer.scene.types import Scene
 
 
 def make_intersectors(scene: Scene, cfg: RenderConfig):
-    """Build (intersect_fn, occluded_fn) closures for the chosen backend."""
+    """Build (intersect_fn, occluded_fn) closures for the chosen backend.
+
+    Both closures carry the route they run as `.backend`: "brute", "bvh",
+    or the sweep route packet.resolve_backend picked for the cluster
+    intersector ("triton" or "xla").
+    """
     v0, v1, v2 = scene.tri_vertices(jnp.arange(scene.n_tris))
     # Tiny scenes: the packet machinery (sort + cull + schedule + sweep)
     # costs more than just testing every triangle densely.
@@ -49,12 +54,7 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
                 "call accel.cluster.build_scene_clusters(scene) first")
         accel = scene.clusters
         accel_fine = scene.clusters_fine or accel
-        backend = cfg.traversal_backend
-        if backend == "pallas" and packet._pallas_interpret():
-            # off-TPU the fused kernel only runs interpreted (orders of
-            # magnitude slower than compiled XLA) - use the XLA sweep;
-            # the kernel itself is covered by tests/test_pallas_sweep.py
-            backend = "xla"
+        backend = packet.resolve_backend(cfg.traversal_backend)
         # With integrator-owned wavefront sorting (path.py), rays arrive
         # already compacted + coherence-ordered: skip the packet layer's
         # per-chunk sorts entirely.
@@ -62,49 +62,28 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
 
         def intersect_fn(o, d, t_min, t_max, primary=False):
             # Primary rays arrive in swizzled 8x8 pixel-block order, which
-            # is already tighter than the coherence sort's bins: sorting
-            # them measured 585 vs 534 ms unsorted at 1080p/262k. They
-            # also traverse the median-split accel (tight boxes pay for
-            # coherent tiles: 602 -> 341 ms/sample). Bounce batches use
-            # the median accel too: on the TRUE multi-bounce workload
-            # (post winding fix) it measures 18.7 -> 17.0 s/sample - the
-            # old morton-for-bounce result was an artifact of nearly-dead
-            # bounce batches. PT_BOUNCE_ACCEL=morton reverts; shadow
-            # rays stay on the Morton accel (its A/B still favors it).
+            # is already tighter than the coherence sort's bins, so they
+            # skip the sort. Closest-hit calls traverse the fine accel;
+            # PT_BOUNCE_ACCEL=morton sends bounce rays to the coarse one.
             import os
 
             a = accel if (not primary and os.environ.get(
                 "PT_BOUNCE_ACCEL") == "morton") else accel_fine
-            # Per-call fetch group (PT_GROUP_PRIMARY / PT_GROUP_BOUNCE,
-            # falling back to PT_FETCH_GROUP): camera tiles pair worse
-            # than bounce tiles (benchmarks/pair_stats.py), so the DMA
-            # grouping is tuned per call type.
-            grp = os.environ.get(
-                "PT_GROUP_PRIMARY" if primary else "PT_GROUP_BOUNCE")
             return packet.intersect_clusters(a, o, d, t_min, t_max,
                                              backend=backend,
                                              sort_rays=sort_rays
-                                             and not primary,
-                                             group=int(grp) if grp
-                                             else None)
+                                             and not primary)
 
         def occluded_fn(o, d, t_max, primary=False, want_blocker=False):
-            # The default chunk is now the whole wavefront (global sort
-            # pool - see kernels/packet.CHUNK_TILES), so the old 131k
-            # special case for bounce 0's fully-live shadow batch is
-            # subsumed. PT_OCCL_ACCEL=fine routes shadow rays through
-            # the median-split accel (A/B knob; Morton measured better:
-            # 18.7 vs 19.3 s/sample post-fix).
+            # Shadow rays traverse the coarse accel; PT_OCCL_ACCEL=fine
+            # routes them through the fine one.
             import os
 
             a = accel_fine if os.environ.get(
                 "PT_OCCL_ACCEL") == "fine" else accel
-            grp = os.environ.get("PT_GROUP_OCCL")
             return packet.occluded_clusters(a, o, d, t_max,
                                             backend=backend,
                                             sort_rays=sort_rays,
-                                            group=int(grp) if grp
-                                            else None,
                                             want_blocker=want_blocker)
     else:
         if scene.bvh is None:
@@ -125,6 +104,9 @@ def make_intersectors(scene: Scene, cfg: RenderConfig):
                 return blocked, jnp.full(o.shape[:1], -1, jnp.int32)
             return blocked
 
+    intersect_fn.backend = occluded_fn.backend = (
+        "brute" if use_brute else
+        backend if cfg.intersector == "cluster" else "bvh")
     return intersect_fn, occluded_fn
 
 
@@ -177,7 +159,7 @@ def _render_sample_impl(scene, cfg, cam, frame_idx, s, prime,
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def render_sample(scene: Scene, cfg: RenderConfig,
                   cam: cam_mod.CameraState, frame_idx, s):
-    """Render ONE sample per pixel: the unit TPU program.
+    """Render ONE sample per pixel: the unit device program.
 
     Returns (linear radiance f32[H, W, 3] of this sample, rays f32 scalar).
     Deterministic in (cfg.seed, frame_idx, s): the counter-based RNG keys
@@ -225,7 +207,7 @@ def _trace_pool_part(scene: Scene, cfg: RenderConfig,
     """Trace ALL spp_eff samples of one spatial pixel part as a wavefront.
 
     The jitted inner of render_frame_batched: one part = one XLA program,
-    so multi-part pools never coexist in HBM. Returns the part's pixel-
+    so multi-part pools never coexist in device memory. Returns the part's pixel-
     scattered radiance SUM [m, 3] in part-row order (split=True) or
     pixel order (single part), rays, hints and G-buffer rows.
     """
@@ -278,8 +260,8 @@ def render_frame_batched(scene: Scene, cfg: RenderConfig,
 
     spp * frames * W * H lanes traced together (cfg.spp_batch /
     cfg.frame_batch): the coherence sort pools every sample's rays,
-    which measures x1.49 fewer bounce sweep columns per ray at 4 spp
-    (docs/PERF.md 0.27), and the cross-frame pool extends that growth
+    which cuts the bounce sweep columns per ray (an exact count, see
+    bench/pair_metrics.py), and the cross-frame pool extends that growth
     past the per-frame spp. The estimator is IDENTICAL to the per-sample
     loop - the RNG keys every draw on (pixel, frame*spp + s, depth, use)
     either way, and `frames` consecutive frames' sample indices are the
@@ -302,15 +284,14 @@ def render_frame_batched(scene: Scene, cfg: RenderConfig,
     if primed and prime is None:
         prime = jnp.full((n, 3), -1, jnp.int32)
 
-    # The wavefront is capped at PT_MAX_WAVEFRONT lanes: above it the
-    # integrator's per-lane state overflows HBM (measured round 4: the
-    # 2-frame x 4-spp 1080p wavefront = 16.6M lanes wants 17.0G of the
-    # 15.75G). The column win of sample batching comes from lanes PER
-    # PIXEL (pool DENSITY - the S=8 probe measured its x1.21 cut on a
-    # 1M-lane pool, docs/PERF.md 0.39.3), not total pool size, so the
+    # The wavefront is capped at PT_MAX_WAVEFRONT lanes
+    # (config.POOL_SATURATION_LANES) to bound the integrator's per-lane
+    # state in device memory. The column win of sample batching comes
+    # from lanes PER PIXEL (pool density), not total pool size, so the
     # pool splits into spatial PARTS along the swizzled lane order: each
     # part traces ALL spp_eff samples of a contiguous run of 8x8 pixel
-    # blocks, as its own jitted XLA program (parts never coexist in HBM).
+    # blocks, as its own jitted XLA program (parts never coexist in
+    # device memory).
     cap = int(os.environ.get("PT_MAX_WAVEFRONT",
                              str(config_mod.POOL_SATURATION_LANES)))
     parts = max(1, -(-(n * spp_eff) // cap))
@@ -371,7 +352,7 @@ def render_frame_with_stats(scene: Scene, cfg: RenderConfig,
                             gbuffer: bool = False):
     """Render one frame's radiance estimate (mean of cfg.spp samples).
 
-    HOST-level spp loop over per-sample TPU programs: dispatches chain
+    HOST-level spp loop over per-sample programs: dispatches chain
     asynchronously on-device, each compiled program stays at one sample's
     size, and spp scales linearly.
 
@@ -490,24 +471,24 @@ class Renderer:
         # one frame (latency - instant visual feedback), and every
         # static-camera step after that renders F frames' pools as one
         # wavefront. At interactive scales the per-frame pool is far
-        # below the 8.3M-lane saturation point, so the joint pool cuts
-        # swept columns AND amortizes per-step dispatch: measured x1.9
-        # (Cornell) / x4.0 (bunny) fps at 480x272@1spp with F=8 on chip
-        # (docs/PERF.md 0.40/0.41). Sample set (and estimator) identical
-        # to F single steps; only float summation order differs.
+        # below config.POOL_SATURATION_LANES, so the joint pool cuts
+        # swept columns AND amortizes per-step dispatch. Sample set (and
+        # estimator) identical to F single steps; only float summation
+        # order differs.
         self.auto_frame_batch = int(auto_frame_batch)
         self._frames_done = 0
-        # Motion preview (viewer latency mode, VERDICT r4 #3): with
-        # motion_preview = s > 1, the step AFTER a camera move renders a
-        # 1-spp frame at (W/s, H/s) instead of full resolution and
-        # display() upscales it - the fly-mode fps was measured
-        # scene-INDEPENDENT at 3.2 (per-step fixed cost, PERF.md 0.41),
-        # so an s=2 preview cuts the moving-camera step ~4x in lanes.
+        # Motion preview (viewer latency mode): with motion_preview =
+        # s > 1, the step AFTER a camera move renders a 1-spp frame at
+        # (W/s, H/s) instead of full resolution and display() upscales
+        # it, so an s=2 preview cuts the moving-camera step ~4x in lanes.
         # The accumulation path is untouched: the preview never enters
         # the film, and the first static step renders full-res frame 1
         # exactly as before.
         self.motion_preview = int(motion_preview)
         self._preview = None
+        # exact ray count of the last step (device scalar; None after a
+        # preview or a mesh step, whose rays are not counted)
+        self.last_rays = None
 
     def reset(self):
         self.film = film_mod.new_film(self.cfg.width, self.cfg.height)
@@ -550,6 +531,7 @@ class Renderer:
             if self.motion_preview > 1:
                 return self._step_preview()
         self._preview = None
+        self.last_rays = None
         if self.mesh is not None:
             from pathtracer.parallel import sharding
 
@@ -599,7 +581,7 @@ class Renderer:
             # ONE wavefront; the film folds all their means at once
             priming = (self.cfg.primary_priming
                        and self.cfg.intersector == "cluster")
-            radiance_sum, _, prime_o, gb = render_frame_batched(
+            radiance_sum, self.last_rays, prime_o, gb = render_frame_batched(
                 self.scene, self.cfg, self.camera.state(),
                 self.film.frame.astype(jnp.uint32),
                 prime=self._prime if priming else None,
@@ -626,7 +608,7 @@ class Renderer:
             self.film.frame.astype(jnp.uint32), prime=self._prime,
             return_prime=True, gbuffer=want_gb)
         if want_gb:
-            radiance, _, self._prime, gb = out
+            radiance, self.last_rays, self._prime, gb = out
             if gb is not None:
                 if self._gbuf is None:
                     self._gbuf = gb
@@ -636,7 +618,7 @@ class Renderer:
                                   for n, v in self._gbuf.items()}
                 self._gbuf_frames += 1
         else:
-            radiance, _, self._prime = out
+            radiance, self.last_rays, self._prime = out
         self.film = film_mod.accumulate(self.film, radiance)
         self._frames_done += 1
         return self.film

@@ -6,7 +6,7 @@ The reference threads a mutable PCG stream through the shader
 (SURVEY.md par.3.6.12) that is also hostile to SPMD: stateful streams force a
 serialisation order.
 
-The TPU-native design is stateless/counter-based: every random number is a
+The design is stateless/counter-based: every random number is a
 pure hash of a structured key (pixel, sample, depth, use, seed). This gives
 
 - exact reproducibility across runs, chips, jit/non-jit and sharding layouts;

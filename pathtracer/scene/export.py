@@ -194,7 +194,7 @@ def export_glb(builder: SceneBuilder, path: str) -> None:
     materials = [_material_json(d, used_exts) for d in builder.materials]
 
     doc = {
-        "asset": {"version": "2.0", "generator": "pathtracer-tpu"},
+        "asset": {"version": "2.0", "generator": "pathtracer"},
         "scene": 0,
         "scenes": [{"nodes": list(range(len(nodes)))}],
         "nodes": nodes,

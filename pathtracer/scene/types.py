@@ -1,12 +1,12 @@
 """Device-resident scene representation.
 
-A frozen pytree of jnp arrays - the TPU-native analog of the reference's
+A frozen pytree of jnp arrays - the device-resident analog of the reference's
 descriptor bindings 3-10 (main.cpp:441-453):
 
   binding 3 vertices   -> positions/normals/uvs/tangents SoA (the reference
                           packs these as 11-float AoS records,
                           closesthit.rchit:38-47; SoA gathers are the
-                          TPU-idiomatic layout)
+                          vector-friendly layout)
   binding 4 indices    -> indices [T,3]
   binding 5 materials  -> mat_* SoA (16-float AoS in the reference,
                           model_loader.h:26-39)
@@ -110,21 +110,18 @@ class Scene:
 
     # Acceleration structures (None until built). `bvh` is the threaded
     # LBVH (accel/lbvh.py); `clusters` is the flat cluster accel for packet
-    # traversal (accel/cluster.py) - the fast path on TPU.
+    # traversal (accel/cluster.py) - the fast path.
     bvh: Optional[Bvh]
     clusters: Optional[object] = None
-    # Second cluster accel for COHERENT (primary) rays: median-split
-    # clusters beat Morton chunks 602 -> 341 ms/sample on the unsorted
-    # screen-order primary trace but LOSE 3x on incoherent bounce tiles
-    # (docs/PERF.md round-2 log) - so the renderer keeps both and picks
-    # per call (render.py make_intersectors).
+    # Second cluster accel for closest-hit rays (the fine build), beside
+    # the coarse one that serves shadow rays - the renderer keeps both
+    # and picks per call (render.py make_intersectors).
     clusters_fine: Optional[object] = None
 
     # Per-MATERIAL composite texels: one u32x3 row packs the albedo RGBA,
     # metal-rough, and normal-map texels at a shared resolution, so the
     # stochastic sampler fetches all three maps with ONE 12-byte-row
-    # gather (12.3 ms vs 3 x 23 ms per 2M lanes - wide gather rows
-    # amortize latency, docs/PERF.md round-2 log). Built under a memory
+    # gather (wide gather rows amortize latency). Built under a memory
     # budget in SceneBuilder.finalize; None = use the per-texture stack.
     tex_comp: Optional[jnp.ndarray] = None     # u32 [M, CH, CW, 3]
     tex_comp_wh: Optional[jnp.ndarray] = None  # i32 [M, 2] true (w, h)
@@ -133,8 +130,7 @@ class Scene:
     # bilinear footprint texels (y,x), (y,x+1 wrap), (y+1 clip,x),
     # (y+1,x+1), so one 48-byte wide-row gather replaces FOUR narrow
     # 12-byte gathers in envmap_radiance - same wide-row lesson as
-    # tex_comp above (docs/PERF.md 0.10/0.44.2; the miss-shader env
-    # lookup measured ~24% of the envmap frame). Bilinear arithmetic is
+    # tex_comp above. Bilinear arithmetic is
     # bit-identical. None when no envmap (or memory-gated).
     envmap_blocks: Optional[jnp.ndarray] = None  # f32 [EH, EW, 12]
 

@@ -2,7 +2,7 @@
 
 Replaces the reference's hand-rolled header math library (math/vec3.h,
 math/mat4.h - SURVEY.md par.2.1 "Math library") with batched jnp ops: every
-function maps over a leading batch of rays/points, the TPU-idiomatic SoA
+function maps over a leading batch of rays/points, the vector-friendly SoA
 equivalent of the reference's per-lane vec3 arithmetic.
 """
 
@@ -72,7 +72,7 @@ def onb(n):
     """Branch-based orthonormal basis (T, B) for normal n.
 
     Re-derivation of common.glsl:52-58 createCoordinateSystem: the branch is
-    realised as a jnp.where select (no per-lane control flow on TPU).
+    realised as a jnp.where select (no per-lane control flow).
     """
     x, y, z = n[..., 0], n[..., 1], n[..., 2]
     cond = (jnp.abs(x) > jnp.abs(y))[..., None]

@@ -1,9 +1,9 @@
-"""Interactive terminal viewer: the reference's windowed loop, TPU-style.
+"""Interactive terminal viewer: the reference's windowed loop, headless.
 
 The reference opens a GLFW window with mouse-look + WASD and resets
 accumulation on movement (main.cpp:662-731, camera.cpp). On a headless
-TPU host the equivalent surface is the terminal: frames render on the
-chip, downsample to character cells, and draw as ANSI truecolor
+host the equivalent surface is the terminal: frames render on the
+device, downsample to character cells, and draw as ANSI truecolor
 half-blocks (each glyph = 2 vertical pixels via U+2580 with separate
 fg/bg colors). Input is raw-mode stdin: WASD + QE translate, arrows or
 IJKL look, +/- speed, ESC/x quits - same camera semantics (speed,

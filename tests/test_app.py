@@ -145,8 +145,8 @@ def test_viewer_escape_parsing(monkeypatch):
 
 
 def test_frame_batch_auto_cli(tmp_path):
-    """--frame-batch auto picks F from the pool rule (PERF 0.40/0.43)
-    and renders the same image as per-frame stepping."""
+    """--frame-batch auto picks F from the pool rule (config.
+    saturating_frame_batch) and renders the same image as per-frame stepping."""
     out = str(tmp_path / "fb.png")
     ck_a = str(tmp_path / "a.npz")
     ck_b = str(tmp_path / "b.npz")

@@ -116,7 +116,7 @@ import pytest
 def test_cell_dedup_table_bit_exact(sampler):
     """The per-(cell, sample) env-sampling table (path._nee_env cell>1
     path) must reproduce the direct per-lane computation bit-exactly -
-    it is the same computation deduplicated (PERF.md 0.44.2). Both
+    it is the same computation deduplicated. Both
     samplers: the Sobol path groups on (pixel-key, sample) differently
     but obeys the same counter-based contract."""
     import jax.numpy as jnp

@@ -45,7 +45,7 @@ def test_cornell_256_matches_golden():
 
 
 def test_cornell_quirks_256_matches_golden():
-    """reference_quirks estimator at config-1 scale (VERDICT r2 item 7).
+    """reference_quirks estimator at config-1 scale.
 
     Quirks mode reproduces the reference's estimator decisions exactly
     (emission not scaled by albedo factor, etc.); the 8x8 oracle test

@@ -1,8 +1,8 @@
 """Knob-COMBINATION exactness matrix.
 
 Every PT_* knob is exactness-pinned individually; this sweeps a sampled
-set of knob COMBINATIONS (build method x key scheme x fetch group x CPI
-x backend x sort scope) against the brute-force oracle so interactions
+set of knob COMBINATIONS (build method x key scheme x chunking x cull x
+backend x sort scope) against the brute-force oracle so interactions
 between independently-tested features can't silently break traversal
 exactness (the knobs all compose in kernels/packet.py closures).
 """
@@ -37,18 +37,16 @@ def _rays(seed=9, n=192):
 COMBOS = [
     # (method, env overrides, intersect kwargs)
     ("sahsplit", {"PT_KEY_SCHEME": "firstcluster",
-                  "PT_KEY_SCHEME_OCCL": "firstcluster",
-                  "PT_SWEEP_CPI": "8"},
-     dict(backend="pallas", group=2)),
-    ("sahleaf", {"PT_KEY_SCHEME": "mixed", "PT_DIR_BITS": "3",
-                 "PT_SWEEP_CPI": "3"},
-     dict(backend="pallas", group=4)),
+                  "PT_KEY_SCHEME_OCCL": "firstcluster"},
+     dict(backend="triton", interpret=True)),
+    ("sahleaf", {"PT_KEY_SCHEME": "mixed", "PT_DIR_BITS": "3"},
+     dict(backend="triton", interpret=True, chunk_rays=128)),
     ("median", {"PT_SORT_SCOPE": "chunk", "PT_KEY_SCHEME_OCCL": "dirmajor"},
      dict(backend="xla", chunk_rays=64)),
-    ("morton", {"PT_KEY_SCHEME": "firstcluster", "PT_SWEEP_CPI": "5"},
-     dict(backend="pallas", cull="frustum")),
+    ("morton", {"PT_KEY_SCHEME": "firstcluster"},
+     dict(backend="triton", interpret=True, cull="frustum")),
     ("sahsplit", {"PT_NATIVE_BUILD": "0", "PT_SAH_DUP": "3.0"},
-     dict(backend="pallas", tile_rays=32)),
+     dict(backend="triton", interpret=True, tile_rays=32)),
 ]
 
 

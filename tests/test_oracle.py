@@ -58,7 +58,7 @@ def test_quirks_estimator_matches_oracle_materials_rr():
 
 @pytest.mark.slow
 def test_quirks_oracle_32px_16spp():
-    """VERDICT r2 item 7: the accuracy bar at 32x32 with 16 spp.
+    """The accuracy bar at 32x32 with 16 spp.
 
     ~16k paths through the scalar numpy oracle (minutes) - marked slow;
     run explicitly with `pytest -m slow tests/test_oracle.py`. Results

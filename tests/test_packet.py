@@ -194,8 +194,7 @@ def test_sahsplit_architectural_exactness():
 
 
 # (the windowed two-phase traversal and reversed-shadow-ray variants were
-# measured-rejected options, removed round 4; docs/PERF.md 0.13/0.17 hold
-# the burial records)
+# measured-rejected options and were removed)
 
 
 def test_per_ray_tmax():
@@ -254,8 +253,8 @@ def test_global_sort_chunked_launches(random_tri_soup, random_rays):
 def test_sort_scope_chunk_matches(random_tri_soup, random_rays, monkeypatch):
     """PT_SORT_SCOPE=chunk (per-chunk sort pool) stays exact.
 
-    The production default sorts the whole wavefront once (global pool,
-    docs/PERF.md 0.19); the chunk scope re-sorts inside each launch. Both
+    The production default sorts the whole wavefront once (global
+    pool); the chunk scope re-sorts inside each launch. Both
     must agree with the brute oracle.
     """
     monkeypatch.setenv("PT_SORT_SCOPE", "chunk")

@@ -1,8 +1,8 @@
-"""Pallas sweep kernel exactness vs the brute-force oracle.
+"""Triton sweep kernel exactness vs the brute-force oracle.
 
-Runs the SAME kernel the TPU executes, in Pallas interpret mode on CPU
-(kernels/packet._pallas_interpret picks this automatically off-TPU).
-Small sizes - interpret mode emulates the DMA/semaphore machinery.
+Runs the Pallas Triton kernels the GPU compiles (kernels/triton_sweep.py)
+in the Pallas interpreter on CPU, which the explicit interpret=True asks
+for. Small sizes: the interpreter walks every program of the grid.
 """
 
 import jax.numpy as jnp
@@ -35,7 +35,7 @@ def test_pallas_closest_matches_bruteforce():
     accel = build_clusters(jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(v2),
                            max_clusters=16)
     hp = intersect_clusters(accel, jnp.asarray(o), jnp.asarray(d), 1e-3,
-                            1e20, backend="pallas")
+                            1e20, backend="triton", interpret=True)
     hr = intersect_brute(jnp.asarray(o), jnp.asarray(d), jnp.asarray(v0),
                          jnp.asarray(v1), jnp.asarray(v2), 1e-3, 1e20)
     np.testing.assert_array_equal(np.asarray(hp.tri), np.asarray(hr.tri))
@@ -52,7 +52,8 @@ def test_pallas_occlusion_matches_bruteforce():
                            max_clusters=16)
     t_max = jnp.full(len(o), 2.0, jnp.float32)
     op = np.asarray(occluded_clusters(accel, jnp.asarray(o), jnp.asarray(d),
-                                      t_max, backend="pallas"))
+                                      t_max, backend="triton",
+                                      interpret=True))
     obr = np.asarray(occluded_brute(jnp.asarray(o), jnp.asarray(d), t_max,
                                     jnp.asarray(v0), jnp.asarray(v1),
                                     jnp.asarray(v2)))
@@ -66,22 +67,19 @@ def test_pallas_ragged_and_tiny():
     for n in (1, 130, 257):
         o, d = _rays(n, seed=n)
         hp = intersect_clusters(accel, jnp.asarray(o), jnp.asarray(d), 1e-3,
-                                1e20, backend="pallas")
+                                1e20, backend="triton", interpret=True)
         hr = intersect_brute(jnp.asarray(o), jnp.asarray(d), jnp.asarray(v0),
                              jnp.asarray(v1), jnp.asarray(v2), 1e-3, 1e20)
         np.testing.assert_array_equal(np.asarray(hp.tri), np.asarray(hr.tri))
 
 
-def test_pallas_cpi_not_dividing_128_keeps_tail(monkeypatch):
-    """cpi values that don't divide 128 must not drop tail schedule entries.
+def test_pallas_cpi_not_dividing_128_keeps_tail():
+    """A long schedule must be walked to its last entry.
 
-    Regression: _pad_cols padded to max(cpi, 128) instead of lcm(cpi, 128),
-    so with cpi=12 only floor(128/12)*12 = 120 of 125 schedule columns were
-    visited - silently missed intersections on schedule-heavy tiles. The
-    scene threads rays through 128 ring-shaped clusters (no hit, so no
-    early exit) to a wall that only the farthest schedule entry holds.
+    The scene threads rays through 128 ring-shaped clusters (no hit, so no
+    early exit) to a wall that only the farthest schedule entry holds: a
+    sweep that drops or clamps tail schedule entries misses the wall.
     """
-    monkeypatch.setenv("PT_SWEEP_CPI", "12")
     rng = np.random.default_rng(11)
     slabs, per = 128, 128          # -> K=128, C=128 clusters
     v0l, v1l, v2l = [], [], []
@@ -118,44 +116,11 @@ def test_pallas_cpi_not_dividing_128_keeps_tail(monkeypatch):
                            max_clusters=128, method="median")
     assert accel.n_clusters >= 121
     hp = intersect_clusters(accel, jnp.asarray(o), jnp.asarray(d), 1e-3,
-                            1e20, backend="pallas")
+                            1e20, backend="triton", interpret=True)
     hr = intersect_brute(jnp.asarray(o), jnp.asarray(d), jnp.asarray(v0),
                          jnp.asarray(v1), jnp.asarray(v2), 1e-3, 1e20)
     assert (np.asarray(hr.tri) >= 0).all()   # every ray hits the far wall
     np.testing.assert_array_equal(np.asarray(hp.tri), np.asarray(hr.tri))
-
-
-def test_pallas_group_fetch_matches(monkeypatch):
-    """PT_FETCH_GROUP=2/4: group-major blocks + group-min schedules.
-
-    The sweep fetches aligned groups of g fine clusters per DMA start
-    (packet._group_blocks); results must stay exactly equal to the
-    brute oracle, including with a cluster count not divisible by g
-    (zero-padded blocks must never produce hits).
-    """
-    v0, v1, v2 = _soup(300)
-    o, d = _rays(700)
-    t_max = jnp.full(len(o), 2.0, jnp.float32)
-    hr = intersect_brute(jnp.asarray(o), jnp.asarray(d), jnp.asarray(v0),
-                         jnp.asarray(v1), jnp.asarray(v2), 1e-3, 1e20)
-    obr = np.asarray(occluded_brute(jnp.asarray(o), jnp.asarray(d), t_max,
-                                    jnp.asarray(v0), jnp.asarray(v1),
-                                    jnp.asarray(v2)))
-    for max_c, g in ((16, 2), (16, 4), (8, 2)):
-        accel = build_clusters(jnp.asarray(v0), jnp.asarray(v1),
-                               jnp.asarray(v2), max_clusters=max_c)
-        monkeypatch.setenv("PT_FETCH_GROUP", str(g))
-        hp = intersect_clusters(accel, jnp.asarray(o), jnp.asarray(d),
-                                1e-3, 1e20, backend="pallas")
-        np.testing.assert_array_equal(np.asarray(hp.tri), np.asarray(hr.tri))
-        both = np.asarray(hp.tri) >= 0
-        np.testing.assert_allclose(np.asarray(hp.t)[both],
-                                   np.asarray(hr.t)[both],
-                                   rtol=1e-4, atol=1e-5)
-        op = np.asarray(occluded_clusters(accel, jnp.asarray(o),
-                                          jnp.asarray(d), t_max,
-                                          backend="pallas"))
-        np.testing.assert_array_equal(op, obr)
 
 
 def test_pallas_occlusion_blocker_hints():
@@ -169,7 +134,8 @@ def test_pallas_occlusion_blocker_hints():
     accel = build_clusters(v0, v1, v2, max_clusters=16)
     t_max = jnp.full(len(o), 2.0, jnp.float32)
     obr = np.asarray(occluded_brute(o, d, t_max, v0, v1, v2))
-    bl, btri = occluded_clusters(accel, o, d, t_max, backend="pallas",
+    bl, btri = occluded_clusters(accel, o, d, t_max, backend="triton",
+                                 interpret=True,
                                  want_blocker=True)
     bl_np, bt_np = np.asarray(bl), np.asarray(btri)
     np.testing.assert_array_equal(bl_np, obr)

@@ -434,7 +434,7 @@ def test_env_nee_cell_interleaving_unbiased():
     return albedo on the sphere and exactly 1.0 on the background, and
     the cell=8 / cell=1 images must agree in MEAN within MC noise (the
     per-pixel estimator is identical; only cross-pixel correlation of
-    the env-direction streams changes - docs/PERF.md 0.44)."""
+    the env-direction streams changes)."""
     b = SceneBuilder()
     m = b.add_material(MaterialDesc(albedo=(0.6, 0.6, 0.6), roughness=1.0))
     sv, sf = icosphere(1.0, (0, 0, 0), 3)
@@ -473,7 +473,7 @@ def test_motion_preview_semantics(cornell_setup):
     """Motion preview (Renderer motion_preview=s): moving-camera steps
     render a low-res preview WITHOUT touching the film, and the first
     static step resumes full-res accumulation bit-identically to a
-    renderer without preview (VERDICT r4 #3)."""
+    renderer without preview."""
     from pathtracer.render import Renderer
 
     scene, _, cam_f, cfg = cornell_setup

@@ -104,16 +104,17 @@ def test_packed_end_to_end_hits_match():
 
 
 def test_packed_pallas_interpret_matches():
+    """The packed schedule through the Triton sweep (interpret mode)."""
     accel = build_clusters(*_soup(1500, seed=7), max_clusters=32)
     o, d = _rays(256, seed=8)
     t_max = jnp.full((256,), 1e20, jnp.float32)
     os.environ["PT_SCHED_PACK"] = "0"
     h0 = packet.intersect_clusters(accel, o, d, 1e-3, t_max,
-                                   backend="pallas")
+                                   backend="triton", interpret=True)
     os.environ["PT_SCHED_PACK"] = "1"
     try:
         h1 = packet.intersect_clusters(accel, o, d, 1e-3, t_max,
-                                       backend="pallas")
+                                       backend="triton", interpret=True)
     finally:
         os.environ.pop("PT_SCHED_PACK", None)
     np.testing.assert_array_equal(np.asarray(h0.t), np.asarray(h1.t))

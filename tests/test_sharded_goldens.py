@@ -1,15 +1,14 @@
-"""Mesh-sharded renders gated against ALL FIVE config goldens (VERDICT r4 #7).
+"""Mesh-sharded renders gated against ALL FIVE config goldens.
 
-test_sharding.py pins sharded-vs-single-chip agreement on small ad-hoc
-scenes; this file closes the gap the r4 verdict named: no mesh-sharded
-render had ever been gated against the five committed BASELINE config
-goldens (tests/goldens/config_N_64.npz), so the sharded path's accuracy
-matrix was narrower than the single-chip one.
+test_sharding.py pins sharded-vs-single-device agreement on small ad-hoc
+scenes; this file gates the mesh-sharded render against the five
+committed BASELINE config goldens (tests/goldens/config_N_64.npz), so the
+sharded path's accuracy matrix matches the single-device one.
 
 Each config's 64x64 probe renders through `render_frame_sharded` on the
 8-virtual-device (tile=4, sample=2) mesh and must pass the SAME robust
 gate as benchmarks/run_configs.accuracy_probe (inlier RMSE + winner-flip
-fraction + relative mean; docs/PERF.md 0.32 explains the robust form).
+fraction + relative mean; pathtracer/bench/checks.image_gate).
 
 Slow tier: five full 64x64@4spp depth-6 renders (incl. the 262k-tri
 sponza scene) through shard_map on one CPU core. Run explicitly:
